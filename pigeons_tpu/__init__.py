@@ -1,11 +1,23 @@
-"""pigeons_tpu: TPU-native non-reversible parallel tempering (JAX/XLA).
+"""pigeons_tpu: non-reversible parallel tempering on accelerators (JAX/XLA).
 
 A from-scratch framework with the capabilities of Pigeons.jl
-(Julia-Tempering), re-designed TPU-first: the chain ladder is a batched SoA
-pytree vmapped on-chip and sharded over a device mesh; DEO swaps are
+(Julia-Tempering), designed for a GPU: the chain ladder is a batched SoA
+pytree vmapped on the device and sharded over a device mesh; DEO swaps are
 permutation updates over replicated index vectors; adaptation reduces
 fixed-shape statistics. See SURVEY.md at the repo root for the reference map.
 """
+
+import os as _os
+
+# XLA's GPU autotuner chooses each fusion's code by timing it, so the same
+# per-lane density compiled at two batch sizes, or in two processes, can
+# round differently. With autotuning off, sharded runs and the serial check
+# stay bitwise equal to their one-device twins. Takes effect when this
+# package is imported before JAX opens a GPU; an explicit level is kept.
+if "xla_gpu_autotune_level" not in _os.environ.get("XLA_FLAGS", ""):
+    _os.environ["XLA_FLAGS"] = (
+        _os.environ.get("XLA_FLAGS", "") + " --xla_gpu_autotune_level=0"
+    ).strip()
 
 from .adaptation import communication_barriers, optimal_schedule
 from .evidence import stepping_stone, stepping_stone_pair

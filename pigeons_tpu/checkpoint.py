@@ -7,7 +7,7 @@ different process count than the one that wrote it (elastic, ``:10-13``);
 ``increment_n_rounds!`` extends a finished run; ``results/all/<id>`` exec
 folders with a ``results/latest`` symlink (``src/utils/exec_folder.jl``).
 
-TPU-native layout: one ``checkpoint.npz`` of globally-indexed arrays plus a
+Layout: one ``checkpoint.npz`` of globally-indexed arrays plus a
 pickled config per round. Because all state is indexed by global replica and
 RNG streams derive from (seed, round, scan, replica), a checkpoint written
 under any replica-mesh layout resumes bitwise-identically under any other —

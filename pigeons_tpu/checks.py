@@ -6,7 +6,7 @@ round and compares every checkpoint file with ``recursive_equal`` — bitwise
 agreement of a distributed run with its serial counterpart is the product's
 flagship correctness guarantee ("Parallelism Invariance").
 
-TPU-native analogue with the same process boundary: the serial copy runs in a
+The analogue here, with the same process boundary: the serial copy runs in a
 fresh OS process (``ChildProcess``) with ``mesh=None``, and the comparison is
 STRUCTURAL over the checkpoint artifacts themselves — every array in
 ``checkpoint.npz`` bitwise, every entry of the pickled meta recursively —

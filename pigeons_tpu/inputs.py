@@ -22,7 +22,7 @@ class Inputs:
     seed: int = 1
     n_rounds: int = 10
     n_chains: int = 10
-    # Number of independent PT ladders batched on-chip (TPU-native capability:
+    # Number of independent PT ladders batched on the device (a batched capability:
     # vmapped replicate systems share one compiled kernel; recorders pool
     # across replicates, multiplying effective samples per wall-clock second).
     n_replicates: int = 1
@@ -46,11 +46,11 @@ class Inputs:
     mesh: Optional[Any] = None
     # Capture a JAX profiler trace (XLA op timeline, HBM usage; view with
     # TensorBoard or Perfetto) of each round >= profile_round under
-    # ``<exec_folder>/profile/`` — the TPU-native analogue of the reference's
+    # ``<exec_folder>/profile/`` — the analogue of the reference's
     # per-round @timed instrumentation (recorders/recorder.jl:118-142).
     # 0 disables. Requires checkpoint=True or an explicit checkpoint_folder.
     profile_round: int = 0
-    # State/density compute dtype. None selects float32 (the TPU-native
+    # State/density compute dtype. None selects float32 (the
     # default; recorders compensate accumulation back to ~f64 accuracy).
     # Pass jnp.float64 (or "float64") for ill-conditioned targets whose
     # density saturates in f32 — the reference computes in Float64 throughout
@@ -60,7 +60,7 @@ class Inputs:
     dtype: Optional[Any] = None
     # Custom swap graph: traced ``(n_chains, scan_idx) -> int32[N]`` partner
     # map (an involution; partner[c] == c means chain c idles this scan).
-    # None selects the non-reversible DEO graph. The TPU form of the
+    # None selects the non-reversible DEO graph. The batched form of the
     # reference's swap_graphs extension point (``src/swap/swap_graph.jl``).
     # Note: schedule adaptation interprets pair statistics as ADJACENT-pair
     # rejection rates, so non-adjacent custom graphs should run with

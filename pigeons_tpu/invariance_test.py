@@ -8,7 +8,7 @@ marginals of the stepped vs unstepped batches with two-sample KS tests using a
 Bonferroni-corrected p-value threshold (default 0.005). A correct invariant
 kernel passes; a buggy one fails.
 
-TPU-native: the reference loops N times serially; here both batches are one
+Batched: the reference loops N times serially; here both batches are one
 vmapped computation (10k chains' steps fused into a single XLA program).
 """
 

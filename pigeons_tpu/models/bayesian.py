@@ -1,7 +1,7 @@
 """BayesianModel: the model frontend — named, constrained parameters with
 priors plus a likelihood, compiled to an unconstrained flat-vector target.
 
-This is the TPU-native replacement for the reference's model bridges
+This is the batched replacement for the reference's model bridges
 (``TuringLogPotential`` flatten/unflatten + link/invlink in
 ``ext/PigeonsDynamicPPLExt``; ``StanLogPotential`` constrained transforms in
 ``ext/PigeonsBridgeStanExt``): instead of calling into Julia/Stan runtimes per

@@ -4,7 +4,7 @@
 protocol (``src/targets/StreamTarget.jl``: one worker process per replica
 speaking ``log_potential(beta)``/``call_sampler!`` over stdin/stdout, used for
 Blang/TreePPL models). A per-replica text protocol defeats vectorization on
-TPU, so the bridge is a BATCHED host callback instead: the user supplies a
+an accelerator, so the bridge is a BATCHED host callback instead: the user supplies a
 host function evaluating the log density for a whole ``[batch, dim]`` block
 at once (e.g. fanning out to a process pool); ``jax.pure_callback`` with
 ``vmap_method='expand_dims'`` splices it into the traced kernels. This is an

@@ -5,7 +5,7 @@ H = -sum over neighbour pairs of spin products, spins in {-1, +1}; the
 annealing reference is iid Bernoulli(1/2) (iid-sampleable, giving tempered
 restarts), explored with exact binary Gibbs updates.
 
-TPU-native: the state is a float {0,1} vector of length L^2; the pair sum is
+Batched form: the state is a float {0,1} vector of length L^2; the pair sum is
 one vectorized roll-and-multiply (periodic boundary), evaluated for the whole
 chain ladder under vmap.
 """

@@ -396,8 +396,7 @@ def logistic_regression(n: int = 200, d: int = 10, seed: int = 0) -> BayesianMod
     def log_likelihood(q):
         logits = X @ q["w"] + q["b"]
         # y*log sigma(z) + (1-y)*log sigma(-z) == y*z - softplus(z): one
-        # transcendental per point instead of two — the AutoMALA gradient
-        # path is VPU-transcendental-bound, so this form is ~1.6x faster
+        # transcendental per point instead of two
         return jnp.sum(y * logits - jax.nn.softplus(logits))
 
     return BayesianModel(

@@ -19,7 +19,7 @@ by a thin shim):
     void   ptn_log_density_batch(const double* x, int batch, int dim,
                                  double* lp_out);
 
-TPU mapping: the library is evaluated on the HOST through a batched
+Device mapping: the library is evaluated on the HOST through a batched
 ``jax.pure_callback`` — one callback per vmapped batch, looping (or batch
 entry point) on the host — and the gradient rides a ``jax.custom_vjp`` so the
 traced kernels (`jax.grad`, AutoMALA leapfrogs) differentiate through it.

@@ -4,7 +4,7 @@ The reference's flagship external frontend compiles ``.stan`` files through
 BridgeStan and ``ccall``s the generated C++ (``ext/PigeonsBridgeStanExt/
 interface.jl:120-183``; custom serializer ``:34-49``; ``param_constrain``
 incl. transformed params/generated quantities ``state.jl:4-8``). The
-TPU-native equivalent cannot call per-point C++ from inside a vmapped kernel
+batched equivalent cannot call per-point C++ from inside a vmapped kernel
 without destroying batching, so this module COMPILES the Stan model language
 itself into traced JAX functions: one ``log_density(x_unconstrained)``
 (``propto=false`` + change-of-variables jacobian, exactly BridgeStan's

@@ -16,7 +16,7 @@ worker detects ``beta == 0``; ``StreamTarget.jl:68-96``), swaps exchange chain
 indices (betas) rather than states, and the worker's seed is derived from the
 master seed by replica index (``java_seed``, ``StreamTarget.jl:100``).
 
-TPU mapping: this is the documented slow compatibility path (SURVEY §7.4) —
+Device mapping: this is the documented slow compatibility path (SURVEY §7.4) —
 each evaluation round-trips device -> host -> worker pipe. The host callback
 is BATCHED: all replicas' requests arrive as one ``[n_chains]`` block per
 scan phase and fan out to the workers from a thread pool, so wall time per

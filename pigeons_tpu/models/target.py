@@ -3,7 +3,7 @@
 Reference interface (``src/targets/target.jl:4-99``): ``initialization``,
 ``default_explorer`` (slice sampler), ``default_reference``, ``sample_iid!``,
 ``create_path`` (default: linear interpolation reference -> target). The
-TPU-native contract replaces dynamic dispatch with traced callables:
+batched contract replaces dynamic dispatch with traced callables:
 
   * ``log_density(x)``: traced target log density for one state vector;
   * ``default_reference()``: a :class:`Reference` (log density + iid sampler);

@@ -10,7 +10,7 @@ weight log_joint(z) + Gumbel noise and the running argmax is the proposal
 of the paper, acceptance probability 1). A divergent leapfrog anywhere bails
 the whole move back to the initial position.
 
-TPU-native notes: segments run as bounded ``lax.while_loop``s (cap
+Batched notes: segments run as bounded ``lax.while_loop``s (cap
 ``max_segment_steps``, a deviation from the reference's unbounded loops —
 hitting the cap is treated as a divergence); the backward trajectory skips its
 first state to avoid double counting (reference ``skip_first``).

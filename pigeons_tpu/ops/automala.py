@@ -11,28 +11,24 @@ scan of each round (transient phase). Between rounds the base step size is
 multiplied by the mean across chains of the mean selected factor 2^exponent,
 and the preconditioner std deviations are re-estimated.
 
-TPU-native notes: the grow/shrink search is one unified bounded
+Batched notes: the grow/shrink search is one unified bounded
 ``lax.while_loop`` (direction +-1); under vmap all chains run the search in
 lockstep with masking. The search is capped at ``max_exponent`` halvings/
 doublings (the reference errors on float underflow instead;
 ``AutoMALA.jl:236-239``).
 
-Speculative windowed search (``window=W > 0``): the r4 profile of the
-MXU-scale logistic regression (n=4096, d=256, ~1000 lanes) shows ~90% of
-device time inside the two search while-loops, whose per-iteration fusions
-already run at the hardware roofline (85-107 TFLOP/s matmuls, HBM-saturated
-elementwise) — the loss is WORST-LANE DIVERGENCE: the batched loop runs ~10
-iterations per refresh while the mean lane needs ~2.5. With ``window=W``,
-after the exponent-0 trial the W next exponents in the search direction are
-evaluated as ONE batched leapfrog (lane dimension x W — nearly free where
-the MXU is under-utilised at the base batch), the per-lane stopping rule is
-applied by selection, and only lanes whose search exceeds the window fall
-back to the sequential loop. Selection semantics are EXACTLY the sequential
-search's (same exponent, same candidate), so chains are bitwise identical
-(tested); only the eval count differs (speculative trials are real evals).
-Measured r3 on the SMALL logreg (n=200, d=10, batch-saturated VPU): the
-sweep is ~2x slower — window=0 (sequential) remains the default; enable it
-for matmul-dominated targets at under-saturated batch sizes.
+Speculative windowed search (``window=W > 0``): under vmap the batched
+search loop runs until its WORST lane stops, while the mean lane needs far
+fewer iterations. With ``window=W``, after the exponent-0 trial the W next
+exponents in the search direction are evaluated as ONE batched leapfrog
+(lane dimension x W — cheap where the matrix units are under-used at the
+base batch), the per-lane stopping rule is applied by selection, and only
+lanes whose search exceeds the window fall back to the sequential loop.
+Selection semantics are EXACTLY the sequential search's (same exponent,
+same candidate), so chains are bitwise identical (tested); only the eval
+count differs (speculative trials are real evals). window=0 (sequential)
+remains the default; enable it for matmul-dominated targets at
+under-saturated batch sizes.
 """
 
 from __future__ import annotations
@@ -85,9 +81,8 @@ class AutoMALA(Explorer):
         self.queued = bool(queued)
         self.queue_width = int(queue_width)
         # telescoping tail (straggler attack, VERDICT r4 item 3): -1 auto =
-        # max(64, Wq//8), 0 disables (default — measured neutral at the MXU
-        # config: the queue only runs ~3-6 iterations, so trailing padding
-        # is not the dominant waste; speculation is. docs/performance.md).
+        # max(64, Wq//8), 0 disables (default: the queue runs only a few
+        # iterations, so trailing padding is not the dominant waste).
         # Results are bitwise width-independent either way (tested).
         self.queue_tail_width = int(queue_tail_width)
 
@@ -313,9 +308,9 @@ def _queued_search(
 
     The vmapped sequential search runs its ``while_loop`` until the WORST
     lane stops, and every masked lane still burns a full density+gradient
-    evaluation per iteration — the r4 profile shows those fusions already at
-    the MXU/HBM roofline, so masked-lane FLOPs are the entire efficiency gap
-    (~10 worst-lane trials vs ~2.5 mean). Three composable design rules:
+    evaluation per iteration, so masked-lane FLOPs are the efficiency gap
+    (the worst lane's trials against the mean lane's). Three composable
+    design rules:
 
     * COMPACTION: each iteration gathers the first ``Wq`` still-active lanes
       (argsort of the active mask — a [B] sort, trivial next to the matmuls),

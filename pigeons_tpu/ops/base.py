@@ -2,7 +2,7 @@
 
 Reference interface (``src/explorers/explorer.jl:7-55``): ``step!`` must leave
 the replica's current tempered distribution invariant; ``adapt_explorer`` runs
-between rounds. The TPU-native contract:
+between rounds. The batched contract:
 
   * ``step(key, x, lp0, lp_fn, beta, chain_params, scan_idx) -> StepOut``
     operates on a SINGLE replica with static shapes and bounded control flow;

@@ -4,11 +4,10 @@ Reference: ``src/explorers/Mix.jl`` (pick one sub-explorer uniformly per
 step) and ``src/explorers/Compose.jl`` (run all sub-explorers in sequence).
 Adaptation and recorder plumbing recurse into the components.
 
-TPU-native note: ``Mix``'s per-replica uniform choice puts a ``lax.switch``
+Batched note: ``Mix``'s per-replica uniform choice puts a ``lax.switch``
 with a BATCHED index inside the vmapped step — XLA must then execute every
 branch on masked lanes, so a K-component Mix costs ~the SUM of its
-components per scan (measured 2.4x the ideal for K=2,
-docs/performance.md). :class:`ScanMix` is the TPU-native mitigation: it
+components per scan. :class:`ScanMix` is the mitigation: it
 cycles components ACROSS scans (one component per scan, all replicas), so
 the switch index stays a scalar under vmap and exactly ONE branch executes
 — the ideal mixture cost, layout-invariant by construction. Statistically

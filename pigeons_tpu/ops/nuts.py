@@ -1,4 +1,4 @@
-"""NUTS: the No-U-Turn Sampler (multinomial variant), TPU-first.
+"""NUTS: the No-U-Turn Sampler (multinomial variant), batched.
 
 Not present in the reference (Pigeons.jl ships SliceSampler/MALA/AutoMALA/
 AAPS); included because a dynamic-trajectory HMC kernel is table stakes for a
@@ -6,7 +6,7 @@ gradient-model engine (BASELINE.json north star names it explicitly).
 Algorithm: Hoffman & Gelman 2014 with Betancourt's multinomial state
 selection and Stan's biased progressive sampling across doublings.
 
-TPU-first structure (everything bounded, vmappable per lane):
+Batched structure (everything bounded, vmappable per lane):
 
   * Iterative doubling: a ``lax.while_loop`` over tree depth; each doubling
     extends the trajectory by ``2^depth`` single leapfrog steps via

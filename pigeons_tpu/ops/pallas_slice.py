@@ -1,47 +1,38 @@
-"""Pallas TPU kernels for the coordinate-wise slice sampler.
+"""Batched coordinate-wise slice sampler for separable densities.
 
-Same algorithm as :class:`~pigeons_tpu.ops.SliceSampler` (Neal 2003 doubling +
-shrinking + validity check; reference ``src/explorers/SliceSampler.jl``), run
-as Mosaic kernels over the whole replica batch with the state resident in
-VMEM. Two kernels, picked by density structure:
+Same algorithm as :class:`~pigeons_tpu.ops.SliceSampler` (Neal 2003 doubling
++ shrinking + validity check; reference ``src/explorers/SliceSampler.jl``),
+run over the whole replica batch at once when the density is additively
+separable (the ``coord_log_density`` contract). For such a density the
+coordinate-c slice test ``z < lp(x with v at c)`` with ``z = lp(x) - Exp``
+reduces to ``f_c(x_c) - Exp < f_c(v)``: every other coordinate's contribution
+cancels from both sides. The coordinate updates are therefore mutually
+independent, and the sequential Gibbs sweep of the reference
+(``src/explorers/SliceSampler.jl:43-62``) factorizes into ``dim``
+independent 1-D slice samplers with the same stationary law. Every
+``(coordinate, lane)`` element runs its own state machine (``_sweep``) and
+chains its ``n_passes`` passes without synchronizing with any other element.
 
-1. ``_banded_sweep_kernel`` — for ADDITIVELY SEPARABLE densities (the
-   ``coord_log_density`` contract): the joint density cancels from every
-   coordinate's slice test, so all ``dim`` coordinates' 1-D slice machines
-   are mutually independent and run CONCURRENTLY, a ``band`` of coordinate
-   rows at a time (band = grid dimension). The while loop shortens from
-   ``n_passes * dim * E[steps]`` iterations to ``n_bands * max(steps)``.
-   Measured on a v5e chip (B=10240 lanes, d=100 MVN): **~7.4 ms** per 3-pass
-   sweep (band=8, blk=2560).
+``_sweep`` is written once, as a pure function over arrays, and built two
+ways:
 
-2. ``_sweep_kernel`` — general densities: each lane (replica) runs its own
-   per-coordinate state machine (ENTER / INIT_R / DOUBLE / SHRINK / CHECK /
-   DONE) through the whole ``n_passes x dim`` sweep, one density evaluation
-   per loop iteration, lanes never synchronizing at coordinate boundaries —
-   the batch waits only for the slowest lane's TOTAL sweep. With a
-   ``coord_log_density`` it answers single-coordinate proposals as O(1)
-   deltas. Measured: ~37 ms per sweep vs ~207 ms for the flattened XLA
-   sampler and ~620 ms for the nested formulation.
+* ``_sweep_pallas`` — a Pallas kernel through Triton. The grid covers
+  (lane blocks, coordinate-row blocks), both parallel; each block keeps its
+  tile's machines in registers for the whole loop and stops at its own
+  slowest element. Per-block stats partials are summed by XLA.
+* ``_sweep_plain`` — the same function over the whole ``[B, dim]`` plane in
+  one ``lax.while_loop``. It is the kernel's reference, and the path on a
+  CPU backend.
 
-Shared mechanics: states processed as ``[rows, B]`` — coordinates on
-sublanes, lanes (replicas) on the 128-wide lane dimension; per-lane scalars
-as cheap ``[1, B]`` rows.
-
-In-kernel randomness is COUNTER-BASED and seeded per lane from the runtime's
-global-replica-index key streams (``rng.keys_for``): every draw is a pure
-function of ``(lane seed, coordinate row, iteration, slot)`` through a
-murmur3-style integer mixer, never of the device index, block decomposition,
-or position-in-block. A chain- or replicate-sharded run is therefore bitwise
-identical to its single-device twin — the kernel analogue of the reference's
-parallelism invariance (``docs/src/distributed.md:39-44``) — and interpret
-mode (CPU tests) draws the very same stream as the Mosaic TPU build.
-
-The stream still differs from the XLA sampler (different mixer and draw
-order) and between the two kernels, so runs are deterministic and
-layout-invariant per implementation but not bitwise equal across
-implementations. The kernels are used when the runtime can hand the explorer
-the whole batch (`step_batched`); per-lane `step` falls back to the XLA
-sampler (this class subclasses it), e.g. under a variational reference.
+Randomness is counter-based: every draw is a pure function of (two uint32
+key words of the lane's global-index key, global coordinate row, iteration)
+through murmur3's integer finalizer, never of the device index or the block
+decomposition. Both builds therefore draw the same streams, and a chain- or
+replicate-sharded run is bitwise identical to its single-device twin — the
+kernel analogue of the reference's parallelism invariance
+(``docs/src/distributed.md:39-44``). The streams differ from the XLA
+sampler's (different mixer and draw order), so runs are deterministic and
+layout-invariant per implementation, not bitwise equal across them.
 """
 
 from __future__ import annotations
@@ -50,28 +41,26 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from .base import StepOut
 from .slice_sampler import SliceSampler
 
-ENTER, INIT_R, DOUBLE, SHRINK, CHECK, DONE = range(6)
+ENTER, DOUBLE, SHRINK, CHECK, DONE = range(5)
 
-_LANE = 128  # TPU lane width: the replica-batch axis tiles in multiples of this
-
-
-def _uniform_from_bits(bits):
-    """Random bits -> (0, 1) float32. Keeps the top 24 bits as a non-negative
-    int32 (Mosaic has no uint32->f32 cast) and scales into the open interval."""
-    i24 = pltpu.bitcast(bits >> jnp.uint32(8), jnp.int32)
-    return i24.astype(jnp.float32) * jnp.float32(2**-24) + jnp.float32(2**-25)
+# One block is one warp with one element per thread. Blocks wait for their
+# own slowest element, so the smallest block wins: on an H100 (400 W limit)
+# a 32-element tile on one warp ran a config-1 sweep in 0.88 ms, 256
+# elements on 4 warps in 1.15 ms, and 16 elements per thread spill
+# registers (14.8 ms).
+_NUM_WARPS = 1
+_TILE = (32, 1)  # (lanes, coordinate rows), powers of two as Triton requires
 
 
 def _fmix32(h):
-    """murmur3's 32-bit finalizer: full-avalanche integer mixing out of
-    shifts/xors/low-multiplies only (no mulhi — Mosaic-friendly)."""
+    """murmur3's 32-bit finalizer: a full-avalanche bijection of uint32."""
     h = h ^ (h >> jnp.uint32(16))
     h = h * jnp.uint32(0x85EBCA6B)
     h = h ^ (h >> jnp.uint32(13))
@@ -80,342 +69,71 @@ def _fmix32(h):
     return h
 
 
-def _hash_words(*words):
-    """Counter-based random bits from uint32 words (seed, coord, counter...):
-    chained murmur3 finalizer rounds. Purely elementwise, so the draw for one
-    (lane, coordinate, iteration) is independent of every other element —
-    the kernel's layout-invariance anchor."""
-    h = jnp.uint32(0x9E3779B9)
-    for w in words:
-        h = _fmix32(h ^ w)
-    return h
+def _element_key(w0, row):
+    """Per-element key word: a bijection of the lane word ``w0`` for each
+    global coordinate row, so the rows of one lane never share a stream."""
+    return _fmix32(w0 ^ _fmix32(row.astype(jnp.uint32) * jnp.uint32(0x9E3779B9)))
 
 
-def _sweep_kernel(
-    # prefetch/scalar inputs
-    nact_ref,  # SMEM [1] int32: number of real (non-padding) lanes
-    # tensor inputs: x, betas, isvar, per-lane seeds, then hoisted density
-    # constants (closure_convert), then outputs + scratch
-    *refs,
-    lp_block,  # ([d, BLK], [1, BLK], [1, BLK], consts) -> [1, BLK]
-    coord_block=None,  # ([1,BLK] v, [1,BLK] c, betas, isvar, consts) -> [1,BLK]
-    const_shapes=(),  # original shapes of the hoisted density constants
-    dim: int,
-    blk: int,
-    w: float,
-    p_dbl: int,
-    n_passes: int,
-    max_iter: int,
-):
-    n_consts = len(const_shapes)
-    x_ref, betas_ref, isvar_ref, seed_ref = refs[0], refs[1], refs[2], refs[3]
-    const_refs = refs[4:4 + n_consts]
-    xout_ref, lp_ref, stats_ref, row_scr = refs[4 + n_consts:]
-    consts = [
-        r[:, :].reshape(shp).astype(dt)
-        for r, (shp, dt) in zip(const_refs, const_shapes)
-    ]
+def _uniform(ka, kb, ctr):
+    """(0, 1) float32 draw number ``ctr`` of the element keyed (ka, kb).
 
-    blk_idx = pl.program_id(0)
-    # layout-invariant counter-based RNG: each lane's stream is a pure
-    # function of its globally-derived seed and its own iteration counter
-    seed_u = pltpu.bitcast(seed_ref[:, :], jnp.uint32)  # [1, B]
-    xout_ref[:, :] = x_ref[:, :]
-    x = xout_ref  # sweep mutates the output block in place
-
-    D, B = dim, blk
-    W = jnp.float32(w)
-    col = jax.lax.broadcasted_iota(jnp.int32, (D, B), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, B), 1) + blk_idx * B
-    real = lane < nact_ref[0]
-
-    betas = betas_ref[:, :]
-    isvar = isvar_ref[:, :]
-
-    def lp_eval(xv):
-        row_scr[:, :] = lp_block(xv, betas, isvar, consts)
-        return row_scr[:, :]
-
-    lp_cur0 = lp_eval(x[:, :])
-
-    # constants lower to replicated vreg layouts, which while-carries cannot
-    # keep once the body produces per-lane values; round-trip zeros through
-    # VMEM to pin the standard layout
-    row_scr[:, :] = jnp.zeros((1, B), jnp.float32)
-    fz = row_scr[:, :]
-    iz = fz.astype(jnp.int32)
-    phase0 = jnp.where(real, ENTER, DONE).astype(jnp.int32) + iz
-
-    # f32 rows: lp_cur, old, z, L, R, lpL, lpR, Lb, Rb, cand, lp_cand,
-    #           Lh, Rh, lpLh, lpRh, acc_sum, acc_n, n_evals, base
-    # i32 rows: phase, j (linear coordinate-step index), K, n_shr
-    init = (
-        lp_cur0, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz,
-        fz, fz, fz, fz,
-        phase0, iz, iz, iz,
-        jnp.zeros((), jnp.uint32),  # per-lane draw counter (iteration index)
-    )
-
-    def cond(st):
-        return jnp.any(st[19] != DONE)
-
-    def body(st):
-        (lp_cur, old, z, L, R, lpL, lpR, Lb, Rb, cand, lp_cand,
-         Lh, Rh, lpLh, lpRh, acc_sum, acc_n, n_evals, base,
-         phase, j, K, n_shr, it) = st
-
-        ctr = it * jnp.uint32(4)
-        u_init = _uniform_from_bits(_hash_words(seed_u, ctr))
-        u_z = _uniform_from_bits(_hash_words(seed_u, ctr + jnp.uint32(1)))
-        u_side = _uniform_from_bits(_hash_words(seed_u, ctr + jnp.uint32(2)))
-        u_shr = _uniform_from_bits(_hash_words(seed_u, ctr + jnp.uint32(3)))
-        e_z = -jnp.log(u_z)
-
-        c = j % D
-        cmask = col == pltpu.repeat(c, D, axis=0)  # one-hot coordinate rows
-
-        is_enter = phase == ENTER
-        row_scr[:, :] = jnp.sum(jnp.where(cmask, x[:, :], 0.0), axis=0, keepdims=True)
-        xc = row_scr[:, :]
-        old = jnp.where(is_enter, xc, old)
-        z = jnp.where(is_enter, lp_cur - e_z, z)
-        L = jnp.where(is_enter, old - W * u_init, L)
-        R = jnp.where(is_enter, L + W, R)
-
-        grow_left = u_side <= 0.5
-        span = R - L
-        dbl_q = jnp.where(grow_left, L - span, R + span)
-        cand_draw = Lb + u_shr * (Rb - Lb)
-        M = 0.5 * (Lh + Rh)
-        query = jnp.where(
-            is_enter, L,
-            jnp.where(phase == INIT_R, R,
-            jnp.where(phase == DOUBLE, dbl_q,
-            jnp.where(phase == SHRINK, cand_draw,
-            jnp.where(phase == CHECK, M, old)))))
-
-        if coord_block is None:
-            x_eff = jnp.where(cmask, pltpu.repeat(query, D, axis=0), x[:, :])
-            lp_q = lp_eval(x_eff)
-        else:
-            # separable density: answer the query as an O(1) delta off the
-            # coordinate's current contribution instead of a full [d, B] pass
-            base = jnp.where(
-                is_enter, lp_cur - coord_block(xc, c, betas, isvar, consts),
-                base,
-            )
-            lp_q = base + coord_block(query, c, betas, isvar, consts)
-        active = phase != DONE
-        n_evals = n_evals + active.astype(jnp.float32)
-
-        # ENTER: record the left endpoint's density, go eval the right one
-        lpL = jnp.where(is_enter, lp_q, lpL)
-
-        ph_initr = phase == INIT_R
-        lpR = jnp.where(ph_initr, lp_q, lpR)
-        K = jnp.where(ph_initr, p_dbl, K)
-
-        # DOUBLE: commit the grown side (slice_double)
-        ph_dbl = phase == DOUBLE
-        L = jnp.where(ph_dbl & grow_left, dbl_q, L)
-        R = jnp.where(ph_dbl & ~grow_left, dbl_q, R)
-        lpL = jnp.where(ph_dbl & grow_left, lp_q, lpL)
-        lpR = jnp.where(ph_dbl & ~grow_left, lp_q, lpR)
-        K = jnp.where(ph_dbl, K - 1, K)
-
-        more_dbl = (K > 0) & ((z < lpL) | (z < lpR))
-        start_shrink = (ph_initr | ph_dbl) & ~more_dbl
-        Lb = jnp.where(start_shrink, L, Lb)
-        Rb = jnp.where(start_shrink, R, Rb)
-        n_shr = jnp.where(start_shrink, 0, n_shr)
-
-        # SHRINK: vertical test; maybe start the validity check
-        ph_shr = phase == SHRINK
-        cand = jnp.where(ph_shr, cand_draw, cand)
-        lp_cand = jnp.where(ph_shr, lp_q, lp_cand)
-        n_shr = jnp.where(ph_shr, n_shr + 1, n_shr)
-        consider = ph_shr & (z < lp_q)
-        acc_n = acc_n + consider.astype(jnp.float32)
-        narrow = (R - L) <= 1.1 * W  # doubling never ran: check is vacuous
-        accept_shr = consider & narrow
-        to_check = consider & ~narrow
-        Lh = jnp.where(to_check, L, Lh)
-        Rh = jnp.where(to_check, R, Rh)
-        lpLh = jnp.where(to_check, lpL, lpLh)
-        lpRh = jnp.where(to_check, lpR, lpRh)
-
-        # CHECK: halve toward the candidate (slice_accept, eager refresh)
-        ph_chk = phase == CHECK
-        take_left = cand < M
-        crossed = (old < M) ^ take_left
-        Lh = jnp.where(ph_chk & ~take_left, M, Lh)
-        Rh = jnp.where(ph_chk & take_left, M, Rh)
-        lpLh = jnp.where(ph_chk & ~take_left, lp_q, lpLh)
-        lpRh = jnp.where(ph_chk & take_left, lp_q, lpRh)
-        chk_rej = ph_chk & crossed & (z >= lpLh) & (z >= lpRh)
-        chk_more = ph_chk & ~chk_rej & ((Rh - Lh) > 1.1 * W)
-        accept_chk = ph_chk & ~chk_rej & ~chk_more
-
-        # rejected candidates shrink the bracket toward themselves
-        rejected = (ph_shr & ~consider) | chk_rej
-        shrink_left = cand < old
-        Lb = jnp.where(rejected & shrink_left, cand, Lb)
-        Rb = jnp.where(rejected & ~shrink_left, cand, Rb)
-        degenerate = jnp.abs(Rb - Lb) <= 3.5e-4 * jnp.maximum(
-            jnp.abs(Lb), jnp.abs(Rb)
-        )
-        bail = rejected & (degenerate | (n_shr >= max_iter))
-
-        accepted = accept_shr | accept_chk
-        finish = accepted | bail
-        commit = cmask & (pltpu.repeat(accepted.astype(jnp.float32), D, axis=0) > 0)
-        x[:, :] = jnp.where(commit, pltpu.repeat(cand, D, axis=0), x[:, :])
-        lp_cur = jnp.where(accepted, lp_cand, lp_cur)
-        acc_sum = acc_sum + accepted.astype(jnp.float32)
-
-        j = jnp.where(finish, j + 1, j)
-        all_done = j >= n_passes * D
-
-        phase = jnp.where(
-            finish,
-            jnp.where(all_done, DONE, ENTER),
-            jnp.where(is_enter, INIT_R,
-            jnp.where(more_dbl & (ph_initr | ph_dbl), DOUBLE,
-            jnp.where(start_shrink | (rejected & ~bail), SHRINK,
-            jnp.where(to_check | chk_more, CHECK, phase)))),
-        ).astype(jnp.int32)
-
-        return (lp_cur, old, z, L, R, lpL, lpR, Lb, Rb, cand, lp_cand,
-                Lh, Rh, lpLh, lpRh, acc_sum, acc_n, n_evals, base,
-                phase, j, K, n_shr, it + jnp.uint32(1))
-
-    st = jax.lax.while_loop(cond, body, init)
-    if coord_block is None:
-        lp_ref[:, :] = st[0]
-    else:
-        # incremental deltas drift by O(n_iters) f32 rounding over the sweep;
-        # hand the engine an exactly-recomputed density for the final state
-        lp_ref[:, :] = lp_eval(x[:, :])
-    stats_ref[0:1, :] = st[15]
-    stats_ref[1:2, :] = st[16]
-    stats_ref[2:3, :] = st[17]
-    stats_ref[3:4, :] = real.astype(jnp.float32)
+    The counter is mixed on its own first (a scalar), so two elements' streams
+    can never be shifted copies of each other; ``ka`` and ``kb`` then enter
+    through two bijective rounds, so two streams coincide only if both 32-bit
+    words do (64 bits of lane entropy instead of 32)."""
+    c = _fmix32(ctr ^ jnp.uint32(0x7F4A7C15))
+    bits = _fmix32(_fmix32(ka ^ c) ^ kb)
+    return (bits >> jnp.uint32(8)).astype(jnp.float32) * jnp.float32(
+        2.0**-24
+    ) + jnp.float32(2.0**-25)
 
 
-def _banded_sweep_kernel(
-    # prefetch/scalar inputs
-    nact_ref,  # SMEM [1] int32: number of real (non-padding) lanes
-    *refs,  # x band, betas, isvar, seeds, hoisted consts, coord bands, outputs, scratch
-    coord_eval,  # ([S,B] v, [S,B] c, [S,B] b, [S,B] iv, consts, cvals) -> [S,B]
-    const_shapes=(),
-    n_coord: int = 0,  # per-coordinate parameter arrays, banded [S, 1] blocks
-    dim: int,
-    band: int,
-    blk: int,
-    w: float,
-    p_dbl: int,
-    n_passes: int,
-    max_iter: int,
-):
-    """Separable-density sweep, banded: every (coordinate, lane) element runs
-    its OWN 1-D slice-sampling state machine, ``band`` coordinate rows at a
-    time over the whole lane block.
+def _sweep(x, lane, row, betas, isvars, w0, w1, coord_vals, consts,
+           ceval_fn, n_lanes, dim, *, w, p_dbl, n_passes, max_iter):
+    """Run every element's ``n_passes`` 1-D slice updates to completion.
 
-    Why this is exact: for an additively separable density
-    ``lp(x) = sum_c f_c(x_c)`` (the precondition of ``coord_log_density``),
-    the coordinate-c slice test ``z < lp(x with v at c)`` with
-    ``z = lp(x) - Exp`` reduces to ``f_c(x_c) - Exp < f_c(v)`` — every other
-    coordinate's contribution cancels from both sides. The coordinate updates
-    are therefore mutually independent, and the sequential Gibbs sweep of the
-    reference (``src/explorers/SliceSampler.jl:43-62``) factorizes into
-    ``dim`` independent 1-D slice samplers with the same stationary law.
-
-    Banding is the TPU shape of that independence: the coordinate band is a
-    GRID dimension, so the per-element machine state is [band, BLK] sublane
-    tiles (band=8 = one f32 tile) instead of [dim, BLK] planes — an
-    iteration costs ~50 tile ops instead of ~50 full planes — while the
-    while-loop still shortens from ~``n_passes * dim * E[steps]`` iterations
-    (the per-lane asynchronous machine above) to ``n_bands * max(steps)``:
-    within a band, elements chain their ``n_passes`` passes without
-    synchronizing (a pass's ENTER needs only the element's own committed
-    value), so each band waits once for its slowest ELEMENT total.
-
-    The final joint density is NOT computed here (a band never sees the other
-    bands' coordinates); the caller re-evaluates it in one fused XLA pass.
+    ``x`` holds the coordinate values of a kernel tile or of the whole
+    plane, lanes on axis 0; ``lane``/``row`` are each element's global lane
+    and coordinate indices. Per-lane inputs (``betas``, ``isvars``, key
+    words ``w0``/``w1``) are ``[., 1]`` columns and ``coord_vals`` ``[1, .]``
+    rows, broadcast here. Elements past ``n_lanes`` lanes or ``dim`` rows
+    are padding and start DONE. Returns the new values and the per-element
+    acceptance sum, candidate count and density-query count (float32).
     """
-    n_consts = len(const_shapes)
-    x_ref, betas_ref, isvar_ref, seed_ref = refs[0], refs[1], refs[2], refs[3]
-    const_refs = refs[4:4 + n_consts]
-    coord_refs = refs[4 + n_consts:4 + n_consts + n_coord]
-    xout_ref, stats_ref, scr = refs[4 + n_consts + n_coord:]
-    consts = [
-        r[:, :].reshape(shp).astype(dt)
-        for r, (shp, dt) in zip(const_refs, const_shapes)
-    ]
-    # per-coordinate parameter values of THIS band, broadcast over lanes —
-    # the banded BlockSpec already gathered the right rows (stored lane-wide
-    # as [d_pad, LANE]), so no dynamic gather appears in the kernel
-    cvals = [pltpu.repeat(r[:, :], blk // _LANE, axis=1) for r in coord_refs]
+    bc = lambda a: jnp.broadcast_to(a, x.shape)
+    beta, isvar = bc(betas), bc(isvars)
+    cvals = [bc(c) for c in coord_vals]
+    ka, kb = _element_key(bc(w0), row), bc(w1)
+    live = (row < dim) & (lane < n_lanes)
 
-    blk_idx = pl.program_id(0)
-    band_idx = pl.program_id(1)
-    xout_ref[:, :] = x_ref[:, :]
-    x = xout_ref  # per-element commits mutate the output band in place
+    def ceval(v):
+        return ceval_fn(v, row, beta, isvar, consts, cvals)
 
-    S, B = band, blk
     W = jnp.float32(w)
-    lane2d = jax.lax.broadcasted_iota(jnp.int32, (S, B), 1) + blk_idx * B
-    c2d = jax.lax.broadcasted_iota(jnp.int32, (S, B), 0) + band_idx * S
-    live = (lane2d < nact_ref[0]) & (c2d < dim)
-    # per-(lane, coordinate) seed: global lane seed mixed with the GLOBAL
-    # coordinate row — never block/band position, so any decomposition of the
-    # batch draws the same per-element stream
-    seed2d = _fmix32(
-        pltpu.repeat(pltpu.bitcast(seed_ref[:, :], jnp.uint32), S, axis=0)
-        ^ (pltpu.bitcast(c2d, jnp.uint32) * jnp.uint32(0x85EBCA77))
-    )
+    fz = jnp.zeros(x.shape, jnp.float32)
+    iz = jnp.zeros(x.shape, jnp.int32)
+    phase0 = jnp.where(live, ENTER, DONE).astype(jnp.int32)
 
-    betas2d = pltpu.repeat(betas_ref[:, :], S, axis=0)
-    isvar2d = pltpu.repeat(isvar_ref[:, :], S, axis=0)
-
-    def ceval(v2d):
-        return coord_eval(v2d, c2d, betas2d, isvar2d, consts, cvals)
-
-    # pin the standard vreg layout (replicated-layout constants cannot be
-    # carried once the body produces per-element values; see _sweep_kernel)
-    scr[:, :] = jnp.zeros((S, B), jnp.float32)
-    fz = scr[:, :]
-    iz = fz.astype(jnp.int32)
-    phase0 = jnp.where(live, ENTER, DONE).astype(jnp.int32) + iz
-
-    # f32 tiles: z, L, R, lcL, lcR, Lb, Rb, cand, Lh, Rh, lcLh, lcRh,
-    #            acc_sum, acc_n, n_evals
-    # i32 tiles: phase, pass_i, K, n_shr
-    init = (
-        fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz,
-        fz, fz, fz,
-        phase0, iz, iz, iz,
-        jnp.zeros((), jnp.uint32),  # per-element draw counter (iteration index)
-    )
+    # f32: x, z, L, R, lcL, lcR, Lb, Rb, cand, Lh, Rh, lcLh, lcRh,
+    #      acc_sum, acc_n, n_evals;  i32: phase, pass_i, K, n_shr
+    init = (x, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz, fz,
+            fz, fz, fz, phase0, iz, iz, iz, jnp.uint32(0))
 
     def cond(st):
-        return jnp.any(st[15] != DONE)
+        return jnp.min(st[16]) < DONE
 
     def body(st):
-        (z, L, R, lcL, lcR, Lb, Rb, cand, Lh, Rh, lcLh, lcRh,
-         acc_sum, acc_n, n_evals,
-         phase, pass_i, K, n_shr, it) = st
+        (old, z, L, R, lcL, lcR, Lb, Rb, cand, Lh, Rh, lcLh, lcRh,
+         acc_sum, acc_n, n_evals, phase, pass_i, K, n_shr, it) = st
 
-        ctr = it * jnp.uint32(2)
-        uA = _uniform_from_bits(_hash_words(seed2d, ctr))
-        uB = _uniform_from_bits(_hash_words(seed2d, ctr + jnp.uint32(1)))
+        uA = _uniform(ka, kb, it * jnp.uint32(2))
+        uB = _uniform(ka, kb, it * jnp.uint32(2) + jnp.uint32(1))
 
         is_enter = phase == ENTER
         active = phase != DONE
 
-        # until the accept commit, the element's coordinate value in x IS the
-        # sweep's "old" point — no separate plane needed
-        old = x[:, :]
+        # until the accept commit, the element's value IS the pass's "old"
         L = jnp.where(is_enter, old - W * uA, L)
         R = jnp.where(is_enter, L + W, R)
 
@@ -436,12 +154,11 @@ def _banded_sweep_kernel(
         lp_q = ceval(query)
         lc_old = ceval(old)
         lc_L = ceval(L)
-        n_evals = n_evals + jnp.where(
-            is_enter, 2.0, 1.0
-        ) * active.astype(jnp.float32)
+        n_evals = n_evals + jnp.where(is_enter, 2.0, 1.0) * active.astype(
+            jnp.float32
+        )
 
-        e_z = -jnp.log(uB)
-        z = jnp.where(is_enter, lc_old - e_z, z)
+        z = jnp.where(is_enter, lc_old + jnp.log(uB), z)  # lc_old - Exp(1)
         lcL = jnp.where(is_enter, lc_L, lcL)
         lcR = jnp.where(is_enter, lp_q, lcR)  # query == R at ENTER
         K = jnp.where(is_enter, p_dbl, K)
@@ -472,6 +189,7 @@ def _banded_sweep_kernel(
         lcLh = jnp.where(to_check, lcL, lcLh)
         lcRh = jnp.where(to_check, lcR, lcRh)
 
+        # CHECK: halve toward the candidate (slice_accept, eager refresh)
         ph_chk = phase == CHECK
         take_left = cand < M
         crossed = (old < M) ^ take_left
@@ -483,6 +201,7 @@ def _banded_sweep_kernel(
         chk_more = ph_chk & ~chk_rej & ((Rh - Lh) > 1.1 * W)
         accept_chk = ph_chk & ~chk_rej & ~chk_more
 
+        # rejected candidates shrink the bracket toward themselves
         rejected = (ph_shr & ~consider) | chk_rej
         shrink_left = cand < old
         Lb = jnp.where(rejected & shrink_left, cand, Lb)
@@ -494,403 +213,284 @@ def _banded_sweep_kernel(
 
         accepted = accept_shr | accept_chk
         finish = accepted | bail
-        x[:, :] = jnp.where(accepted, cand, old)
+        new = jnp.where(accepted, cand, old)
         acc_sum = acc_sum + accepted.astype(jnp.float32)
 
         pass_i = jnp.where(finish, pass_i + 1, pass_i)
-        all_done = pass_i >= n_passes
         phase = jnp.where(
             finish,
-            jnp.where(all_done, DONE, ENTER),
+            jnp.where(pass_i >= n_passes, DONE, ENTER),
             jnp.where((is_enter | ph_dbl) & more_dbl, DOUBLE,
             jnp.where(start_shrink | (rejected & ~bail), SHRINK,
             jnp.where(to_check | chk_more, CHECK, phase))),
         ).astype(jnp.int32)
 
-        return (z, L, R, lcL, lcR, Lb, Rb, cand, Lh, Rh, lcLh, lcRh,
+        return (new, z, L, R, lcL, lcR, Lb, Rb, cand, Lh, Rh, lcLh, lcRh,
                 acc_sum, acc_n, n_evals, phase, pass_i, K, n_shr,
                 it + jnp.uint32(1))
 
-    st = jax.lax.while_loop(cond, body, init)
-    # the stats block (0, i) stays VMEM-resident across the band steps of one
-    # lane block; initialize at the first band, accumulate afterwards.
-    # Row 3 is a diagnostic: total while-loop iterations across bands.
-    acc = jnp.concatenate(
-        [
-            jnp.sum(st[12], axis=0, keepdims=True),
-            jnp.sum(st[13], axis=0, keepdims=True),
-            jnp.sum(st[14], axis=0, keepdims=True),
-            jnp.broadcast_to(
-                st[19].astype(jnp.int32).astype(jnp.float32), (1, B)
-            ) + fz[0:1, :],
-        ],
-        axis=0,
+    st = lax.while_loop(cond, body, init)
+    return st[0], st[13], st[14], st[15]
+
+
+def _sweep_plain(x, *args, **params):
+    """``_sweep`` over the whole ``[B, dim]`` plane in one XLA while loop.
+    Returns ``(x, [3, B] stats)``."""
+    lane = lax.broadcasted_iota(jnp.int32, x.shape, 0)
+    row = lax.broadcasted_iota(jnp.int32, x.shape, 1)
+    x_new, *stats = _sweep(x, lane, row, *args, **params)
+    return x_new, jnp.stack([jnp.sum(s, axis=1) for s in stats])
+
+
+def _sweep_kernel(x_ref, beta_ref, isvar_ref, w0_ref, w1_ref, *refs,
+                  n_consts, n_coord, const_shapes, ceval_fn, n_lanes, dim,
+                  tile, params):
+    const_refs = refs[:n_consts]
+    coord_refs = refs[n_consts:n_consts + n_coord]
+    xo_ref, acc_ref, accn_ref, ne_ref = refs[n_consts + n_coord:]
+    lanes, rows = tile
+    lane = pl.program_id(0) * lanes + lax.broadcasted_iota(jnp.int32, tile, 0)
+    row = pl.program_id(1) * rows + lax.broadcasted_iota(jnp.int32, tile, 1)
+    consts = [r[...].reshape(s) for r, s in zip(const_refs, const_shapes)]
+    x_new, *stats = _sweep(
+        x_ref[...], lane, row, beta_ref[...], isvar_ref[...], w0_ref[...],
+        w1_ref[...], [r[...] for r in coord_refs], consts, ceval_fn,
+        n_lanes, dim, **params,
+    )
+    xo_ref[...] = x_new
+    for ref, s in zip((acc_ref, accn_ref, ne_ref), stats):
+        ref[...] = jnp.sum(s, axis=1, keepdims=True)
+
+
+def _sweep_pallas(x, betas, isvars, w0, w1, coord_vals, consts, ceval_fn,
+                  n_lanes, dim, *, tile, interpret=False, **params):
+    """``_sweep`` as a Pallas/Triton kernel over ``tile = (lanes, rows)``
+    blocks of the ``[B, dim]`` plane, both padded to multiples of the tile.
+    Returns ``(x, [3, B] stats)``."""
+    lanes, rows = tile
+    b_pad, d_pad = x.shape
+    grid = (b_pad // lanes, d_pad // rows)
+    # 0-d constants travel as [1] arrays (a kernel operand has a shape)
+    consts1 = [c.reshape(c.shape or (1,)) for c in consts]
+
+    def full(a):
+        return pl.BlockSpec(a.shape, lambda i, g: (0,) * a.ndim)
+
+    lane_spec = pl.BlockSpec((lanes, 1), lambda i, g: (i, 0))
+    tile_spec = pl.BlockSpec(tile, lambda i, g: (i, g))
+    kern = functools.partial(
+        _sweep_kernel,
+        n_consts=len(consts), n_coord=len(coord_vals),
+        const_shapes=tuple(c.shape for c in consts), ceval_fn=ceval_fn,
+        n_lanes=n_lanes, dim=dim, tile=tile, params=params,
+    )
+    # per-block stats partials, one column per coordinate-row block
+    stat_shape = jax.ShapeDtypeStruct((b_pad, grid[1]), jnp.float32)
+    stat_spec = pl.BlockSpec((lanes, 1), lambda i, g: (i, g))
+    x_new, *partials = pl.pallas_call(
+        kern,
+        grid=grid,
+        in_specs=[tile_spec]
+        + [lane_spec] * 4
+        + [full(c) for c in consts1]
+        + [pl.BlockSpec((1, rows), lambda i, g: (0, g)) for _ in coord_vals],
+        out_specs=[tile_spec] + [stat_spec] * 3,
+        out_shape=[jax.ShapeDtypeStruct(x.shape, jnp.float32)]
+        + [stat_shape] * 3,
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS),
+        interpret=interpret,
+        name="slice_sweep",
+    )(x, betas, isvars, w0, w1, *consts1, *coord_vals)
+    return x_new, jnp.stack([jnp.sum(p, axis=1) for p in partials])
+
+
+def _hoist(fn, *example):
+    """Pallas kernels may not capture array constants (model data the density
+    closes over): hoist the jaxpr consts into explicit kernel inputs
+    (``jax.closure_convert`` only hoists tracers, not arrays)."""
+    cj = jax.make_jaxpr(fn)(*example)
+    n_args = len(example)
+
+    def call(*args_and_consts):
+        args = args_and_consts[:n_args]
+        cs = args_and_consts[n_args:]
+        return jax.core.eval_jaxpr(cj.jaxpr, cs, *args)[0]
+
+    return call, list(cj.consts)
+
+
+def batched_sweep(keys, xs, betas, isvars, coord_fn, coord_arrays=(), *,
+                  w, p_dbl, n_passes, max_iter, impl, tile=_TILE):
+    """One slice sweep of every (coordinate, lane) element of ``xs [B, dim]``.
+
+    ``coord_fn(v, c, beta, isvar, *coord_vals) -> scalar`` is coordinate
+    ``c``'s term of a separable density; ``coord_arrays`` are [dim] vectors
+    whose entry ``c`` reaches it as ``coord_vals``. ``impl`` is ``"kernel"``
+    (compiled Pallas/Triton), ``"interpret"`` (the same kernel in the Pallas
+    interpreter) or ``"plain"`` (one XLA while loop). All three draw the same
+    streams. Returns ``(x_new [B, dim], stats [3, B])``: acceptance sum,
+    candidate count, density queries.
+    """
+    B, dim = xs.shape
+    f0 = jnp.float32(0.0)
+    closed, consts = _hoist(
+        coord_fn, f0, jnp.int32(0), f0, f0, *(f0 for _ in coord_arrays)
     )
 
-    @pl.when(band_idx == 0)
-    def _():
-        stats_ref[:, :] = acc
+    def ceval_fn(v, row, beta, isvar, kconsts, cvals):
+        def f(v, c, b, iv, *cv):
+            return closed(v, c, b, iv, *cv, *kconsts)
 
-    @pl.when(band_idx != 0)
-    def _():
-        stats_ref[:, :] = stats_ref[:, :] + acc
+        return jax.vmap(jax.vmap(f))(v, row, beta, isvar, *cvals)
+
+    if impl == "plain":
+        b_pad, d_pad = B, dim
+    else:
+        b_pad = -(-B // tile[0]) * tile[0]
+        d_pad = -(-dim // tile[1]) * tile[1]
+
+    def lane_col(a, dtype):
+        return jnp.zeros((b_pad, 1), dtype).at[:B, 0].set(a.astype(dtype))
+
+    # two uint32 words per lane from its global-index key
+    words = jax.vmap(lambda k: jax.random.bits(k, (2,), jnp.uint32))(keys)
+    # the plane stays [B, dim], lanes major, like the runtime's states: a
+    # transposed layout would make the caller's density sums over the
+    # coordinates column reductions, whose rounding depends on the batch size
+    args = (
+        jnp.zeros((b_pad, d_pad), jnp.float32).at[:B, :dim].set(xs),
+        lane_col(betas, jnp.float32),
+        lane_col(isvars, jnp.float32),
+        lane_col(words[:, 0], jnp.uint32),
+        lane_col(words[:, 1], jnp.uint32),
+        [
+            jnp.zeros((1, d_pad), jnp.float32).at[0, :dim].set(
+                jnp.asarray(a, jnp.float32)
+            )
+            for a in coord_arrays
+        ],
+        consts,
+        ceval_fn,
+        B,
+        dim,
+    )
+    params = dict(w=w, p_dbl=p_dbl, n_passes=n_passes, max_iter=max_iter)
+    if impl == "plain":
+        x_out, stats = _sweep_plain(*args, **params)
+    elif impl in ("kernel", "interpret"):
+        x_out, stats = _sweep_pallas(
+            *args, tile=tile, interpret=impl == "interpret", **params
+        )
+    else:
+        raise ValueError(f"unknown sweep impl {impl!r}")
+    return x_out[:B, :dim], stats[:, :B]
 
 
 class SliceSamplerPallas(SliceSampler):
-    """Slice sampler with a batched Pallas TPU fast path.
+    """Slice sampler with a batched path for separable densities.
 
-    ``step`` (per-lane, vmapped) falls back to the XLA
-    :class:`SliceSampler`; the runtime uses ``step_batched`` whenever it can
-    hand over the whole replica batch (currently: no variational reference).
+    The runtime hands ``step_batched`` the whole replica batch. When the
+    target gives ``coord_log_density``, every (coordinate, lane) element runs
+    its own 1-D slice machine (:func:`batched_sweep`): compiled as a
+    Pallas/Triton kernel on a GPU backend, as one XLA while loop elsewhere.
+    Otherwise, and for integer or Bool coordinates, it runs the inherited XLA
+    :class:`SliceSampler` step.
 
-    ``interpret=True`` runs the kernel in the Pallas interpreter (for CPU
-    tests); by default it is enabled automatically off-TPU.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
     """
 
     def __init__(self, w: float = 10.0, p: int = 20, n_passes: int = 3,
-                 max_iter: int = 1024, interpret: bool | None = None,
-                 block_bytes: int = 24 * 1024 * 1024,
-                 coord_deltas: bool = True,
-                 parallel_coords: bool = True,
-                 band: int = 8,
-                 parallel_blk: int = 2560,
+                 max_iter: int = 1024, interpret: bool = False,
                  integer_mask=None, binary_mask=None):
         super().__init__(
             w=w, p=p, n_passes=n_passes, max_iter=max_iter,
             integer_mask=integer_mask, binary_mask=binary_mask,
         )
-        self.interpret = interpret
-        self.block_bytes = int(block_bytes)
-        self.coord_deltas = bool(coord_deltas)
-        # for separable densities run the coordinates' 1-D slice machines
-        # concurrently, `band` coordinate rows at a time
-        # (_banded_sweep_kernel) — exact because the joint density cancels
-        # from every coordinate's slice test. parallel_blk is the lane-block
-        # size of that kernel: measured optimum ~2560 on v5e (smaller blocks
-        # hit a Mosaic compile pathology, larger ones register pressure)
-        self.parallel_coords = bool(parallel_coords)
-        self.band = int(band)
-        self.parallel_blk = int(parallel_blk)
+        self.interpret = bool(interpret)
 
     @property
     def batched(self) -> bool:
         # integer/ordinal and Bool coordinates run through the XLA sampler
-        # (the Mosaic kernels implement the continuous draw conventions only;
+        # (the batched path implements the continuous draw conventions only;
         # Bool coordinates need the in-sampler exact Gibbs draw)
         return self.integer_mask is None and self.binary_mask is None
 
-    def _use_interpret(self) -> bool:
-        if self.interpret is not None:
-            return self.interpret
-        return jax.devices()[0].platform != "tpu"
+    def sweep_impl(self) -> str:
+        """The :func:`batched_sweep` build for this process's backend."""
+        if self.interpret:
+            return "interpret"
+        return "kernel" if jax.default_backend() == "gpu" else "plain"
 
     def supports_ref_params(self, ref_params) -> bool:
         if ref_params == () or ref_params is None:
             return True
         # array-pytree reference params (e.g. the variational Gaussian's
-        # mean/std/active) hoist into the kernel as ordinary tensor inputs;
-        # per-coordinate arrays additionally ride the banded block path
-        import jax as _jax
-
-        leaves = _jax.tree.leaves(ref_params)
+        # mean/std/active) become ordinary kernel inputs
+        leaves = jax.tree.leaves(ref_params)
         return bool(leaves) and all(hasattr(l, "shape") for l in leaves)
 
     def step_batched(self, keys, xs, lp0s, ld, betas, isvars, ref_params,
                      chain_params, scan_idx, ld_coord=None, coord_arrays=(),
                      compute_final_lp: bool = True) -> StepOut:
-        """Run the whole-sweep kernel over the replica batch.
+        """One sweep over the replica batch.
 
         ``keys [B]`` are the runtime's per-lane PRNG keys, derived by GLOBAL
-        replica index (``rng.keys_for``); the kernel reduces each to a uint32
-        seed and draws counter-based bits from it, so the stream is bitwise
+        replica index (``rng.keys_for``); each is reduced to two uint32 words
+        from which every draw is hashed, so the stream is bitwise
         layout-invariant across any device/block decomposition.
         ``xs [B, dim]``, ``lp0s/betas/isvars [B]``; ``ld(x, beta, isvar,
         ref_params) -> scalar`` is the traced interpolated log density.
         ``ld_coord(v, c, beta, isvar, ref_params, *coord_vals) -> scalar``,
         when given, is the contribution of coordinate ``c`` at value ``v`` of
-        a separable density — the kernel then answers every single-coordinate
-        proposal as an O(1) delta instead of a full O(dim) recomputation
-        (the reference's design cannot express this: its SliceSampler
-        re-evaluates the full closure per proposal,
+        a separable density: each proposal is answered from it as an O(1)
+        term instead of a full O(dim) recomputation (the reference's
+        SliceSampler re-evaluates the full closure per proposal,
         ``src/explorers/SliceSampler.jl:144-186``). ``coord_arrays`` are
         [dim]-shaped per-coordinate parameter vectors (e.g. the variational
-        Gaussian's mean/std): the banded kernel receives coordinate ``c``'s
-        entries as already-gathered ``coord_vals`` scalars, delivered through
-        banded BlockSpecs — Mosaic supports no N-D dynamic gather, so density
-        closures must NOT index [dim] arrays by the traced ``c`` themselves
-        (it only happens to work in interpret mode).
+        Gaussian's mean/std): coordinate ``c``'s entries arrive as
+        ``coord_vals`` scalars, delivered by the kernel's row blocks — the
+        compiled kernel has no gather, so density closures must not index
+        [dim] arrays by the traced ``c`` themselves.
         """
         if not self.supports_ref_params(ref_params):
             raise NotImplementedError(
                 "SliceSamplerPallas.step_batched requires array-pytree "
                 "reference params"
             )
-        B, dim = xs.shape
-        interpret = self._use_interpret()
-        coord_arrays = tuple(coord_arrays)
-        parallel = ld_coord is not None and self.coord_deltas and self.parallel_coords
-
-        # lane padding + block decomposition; the banded kernel's state lives
-        # in [band, blk] tiles, the async kernel's in [1, blk] rows + [dim, blk]
-        if parallel:
-            S = self.band
-            d_pad = -(-dim // S) * S
-            n_bands = d_pad // S
-            blk_cap = max(_LANE, self.parallel_blk // _LANE * _LANE)
-        else:
-            S, d_pad, n_bands = 0, dim, 1
-            blk_cap = max(
-                _LANE,
-                (self.block_bytes // (4 * max(dim, 1) * 4)) // _LANE * _LANE,
-            )
-        b_lanes = -(-B // _LANE) * _LANE
-        # smallest block count the cap allows, then the evenly-divided block
-        # size (avoids padding B up to n_blocks * blk_cap)
-        n_blocks = -(-b_lanes // blk_cap)
-        blk = -(-b_lanes // (n_blocks * _LANE)) * _LANE
-        b_pad = n_blocks * blk
-
-        x_db = jnp.zeros((d_pad, b_pad), jnp.float32).at[:dim, :B].set(xs.T)
-        betas_p = jnp.zeros((1, b_pad), jnp.float32).at[0, :B].set(betas)
-        isvar_p = jnp.zeros((1, b_pad), jnp.float32).at[0, :B].set(
-            jnp.asarray(isvars, jnp.float32)
-        )
-        # one uint32 seed per lane from its global-index key; stored as an
-        # int32 [1, b_pad] row (Mosaic VMEM carries no uint32 inputs)
-        lane_seeds = jax.vmap(
-            lambda k: jax.lax.bitcast_convert_type(
-                jax.random.bits(k, (), jnp.uint32), jnp.int32
-            )
-        )(keys)
-        seeds_p = jnp.zeros((1, b_pad), jnp.int32).at[0, :B].set(lane_seeds)
-        nact = jnp.asarray([B], jnp.int32)
-
-        # Pallas kernels may not capture array constants (model data the
-        # density closes over); hoist the jaxpr consts into explicit kernel
-        # inputs (jax.closure_convert only hoists tracers, not arrays)
-        def _hoist(fn, *example):
-            cj = jax.make_jaxpr(fn)(*example)
-            n_args = len(example)
-
-            def call(*args_and_consts):
-                args = args_and_consts[:n_args]
-                cs = args_and_consts[n_args:]
-                return jax.core.eval_jaxpr(cj.jaxpr, cs, *args)[0]
-
-            return call, list(cj.consts)
-
-        f0 = jnp.float32(0.0)
-        closed_lp, lp_consts = _hoist(
-            lambda xv, b, iv: ld(xv, b, iv, ref_params),
-            jnp.zeros((dim,), jnp.float32), f0, f0,
-        )
-        closed_coord, coord_consts = None, []
-        # the async kernel's O(1)-delta path gathers by a traced scalar c and
-        # cannot consume per-coordinate arrays; only the banded kernel can
-        # (they arrive as banded blocks), so gate the hoist accordingly
-        if ld_coord is not None and self.coord_deltas and (
-            parallel or not coord_arrays
-        ):
-            cv_ex = tuple(f0 for _ in coord_arrays)
-            closed_coord, coord_consts = _hoist(
-                lambda v, c, b, iv, *cv: ld_coord(v, c, b, iv, ref_params, *cv),
-                f0, jnp.int32(0), f0, f0, *cv_ex,
-            )
-        n_lp = len(lp_consts)
-        all_consts = list(lp_consts) + list(coord_consts)
-        const_shapes = tuple((c.shape, c.dtype) for c in all_consts)
-
-        def _store2d(a):
-            a = jnp.asarray(a)
-            if jnp.issubdtype(a.dtype, jnp.floating):
-                a = a.astype(jnp.float32)
-            else:
-                a = a.astype(jnp.int32)
-            return a.reshape(1, max(1, a.size))
-
-        consts2d = [_store2d(c) for c in all_consts]
-
-        def lp_block(x_eff, betas_row, isvar_row, kconsts):
-            cs = kconsts[:n_lp]
-            out = jax.vmap(
-                lambda xc, b, iv: closed_lp(xc, b[0], iv[0], *cs),
-                in_axes=(1, 1, 1),
-                out_axes=0,
-            )(x_eff, betas_row, isvar_row)
-            return out[None, :]
-
-        coord_block = None
-        if closed_coord is not None and not parallel:
-
-            def coord_block(v_row, c_row, betas_row, isvar_row, kconsts):
-                cs = kconsts[n_lp:]
-                out = jax.vmap(
-                    lambda v, c, b, iv: closed_coord(
-                        v[0], c[0], b[0], iv[0], *cs
-                    ),
-                    in_axes=(1, 1, 1, 1),
-                    out_axes=0,
-                )(v_row, c_row, betas_row, isvar_row)
-                return out[None, :]
-
-        if parallel:
-
-            def coord_eval2d(v2d, c2d, betas2d, isvar2d, kconsts, cvals2d):
-                cs = kconsts[n_lp:]
-
-                def f(v, c, b, iv, *cv):
-                    return closed_coord(v, c, b, iv, *cv, *cs)
-
-                return jax.vmap(jax.vmap(f))(v2d, c2d, betas2d, isvar2d, *cvals2d)
-
-            # per-coordinate parameter vectors, stored lane-wide so the banded
-            # BlockSpec slices band g's rows (no dynamic gather in the kernel)
-            coord2d = [
-                jnp.zeros((d_pad, _LANE), jnp.float32)
-                .at[:dim, :]
-                .set(jnp.asarray(a, jnp.float32)[:, None])
-                for a in coord_arrays
-            ]
-
-            kern = functools.partial(
-                _banded_sweep_kernel,
-                coord_eval=coord_eval2d,
-                const_shapes=const_shapes,
-                n_coord=len(coord2d),
-                dim=dim,
-                band=S,
-                blk=blk,
-                w=self.w,
-                p_dbl=self.p,
-                n_passes=self.n_passes,
-                max_iter=self.max_iter,
-            )
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=1,
-                grid=(n_blocks, n_bands),
-                in_specs=[
-                    pl.BlockSpec(
-                        (S, blk), lambda i, g, *_: (g, i), memory_space=pltpu.VMEM
-                    ),
-                    pl.BlockSpec(
-                        (1, blk), lambda i, g, *_: (0, i), memory_space=pltpu.VMEM
-                    ),
-                    pl.BlockSpec(
-                        (1, blk), lambda i, g, *_: (0, i), memory_space=pltpu.VMEM
-                    ),
-                    pl.BlockSpec(
-                        (1, blk), lambda i, g, *_: (0, i), memory_space=pltpu.VMEM
-                    ),
-                ]
-                + [
-                    pl.BlockSpec(
-                        c.shape, lambda i, g, *_: (0, 0), memory_space=pltpu.VMEM
-                    )
-                    for c in consts2d
-                ]
-                + [
-                    pl.BlockSpec(
-                        (S, _LANE), lambda i, g, *_: (g, 0), memory_space=pltpu.VMEM
-                    )
-                    for _ in coord2d
-                ],
-                out_specs=(
-                    pl.BlockSpec(
-                        (S, blk), lambda i, g, *_: (g, i), memory_space=pltpu.VMEM
-                    ),
-                    pl.BlockSpec(
-                        (4, blk), lambda i, g, *_: (0, i), memory_space=pltpu.VMEM
-                    ),
-                ),
-                scratch_shapes=[pltpu.VMEM((S, blk), jnp.float32)],
-            )
-            x_out, stats = pl.pallas_call(
-                kern,
-                out_shape=(
-                    jax.ShapeDtypeStruct((d_pad, b_pad), jnp.float32),
-                    jax.ShapeDtypeStruct((4, b_pad), jnp.float32),
-                ),
-                grid_spec=grid_spec,
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=100 * 1024 * 1024
-                ),
-                interpret=pltpu.InterpretParams() if interpret else False,
-            )(nact, x_db, betas_p, isvar_p, seeds_p, *consts2d, *coord2d)
-            x_new = x_out[:dim, :B].T
-            # the kernel never sees the joint density (a band only holds its
-            # own coordinates); recompute it in one fused XLA pass — unless
-            # the caller computes it itself (the runtime fuses it with the
-            # swap's partner-beta evaluation), in which case skip the pass
-            if compute_final_lp:
-                lp_new = jax.vmap(
-                    lambda xv, b, iv: ld(xv, b, iv, ref_params)
-                )(x_new, betas, jnp.asarray(isvars, jnp.float32))
-            else:
-                # placeholder derived from the kernel output so a data
-                # dependency on the explorer survives even when the caller
-                # discards lp (the host_sequential guard in pt.py sequences
-                # host-callback density reads after the move through it)
-                lp_new = x_new[:, 0] * 0.0
-            return StepOut(
-                x=x_new,
-                lp=lp_new,
-                accept_sum=stats[0, :B],
-                accept_n=stats[1, :B],
-                n_steps=stats[2, :B],
-            )
-
-        kern = functools.partial(
-            _sweep_kernel,
-            lp_block=lp_block,
-            coord_block=coord_block,
-            const_shapes=const_shapes,
-            dim=dim,
-            blk=blk,
-            w=self.w,
-            p_dbl=self.p,
-            n_passes=self.n_passes,
-            max_iter=self.max_iter,
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_blocks,),
-            in_specs=[
-                pl.BlockSpec((dim, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-            ]
-            + [
-                pl.BlockSpec(
-                    c.shape, lambda i, *_: (0, 0), memory_space=pltpu.VMEM
+        isvars = jnp.asarray(isvars, jnp.float32)
+        if ld_coord is None:
+            # non-separable density: the per-lane XLA sampler
+            return jax.vmap(
+                lambda k, x, lp0, b, iv, cp: self.step(
+                    k, x, lp0, lambda xx: ld(xx, b, iv, ref_params), b, cp,
+                    scan_idx,
                 )
-                for c in consts2d
-            ],
-            out_specs=(
-                pl.BlockSpec((dim, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((4, blk), lambda i, *_: (0, i), memory_space=pltpu.VMEM),
-            ),
-            scratch_shapes=[pltpu.VMEM((1, blk), jnp.float32)],
-        )
-        x_out, lp_out, stats = pl.pallas_call(
-            kern,
-            out_shape=(
-                jax.ShapeDtypeStruct((dim, b_pad), jnp.float32),
-                jax.ShapeDtypeStruct((1, b_pad), jnp.float32),
-                jax.ShapeDtypeStruct((4, b_pad), jnp.float32),
-            ),
-            grid_spec=grid_spec,
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024
-            ),
-            interpret=pltpu.InterpretParams() if interpret else False,
-        )(nact, x_db, betas_p, isvar_p, seeds_p, *consts2d)
+            )(keys, xs, lp0s, betas, isvars, chain_params)
 
+        x_new, stats = batched_sweep(
+            keys, xs, betas, isvars,
+            lambda v, c, b, iv, *cv: ld_coord(v, c, b, iv, ref_params, *cv),
+            tuple(coord_arrays),
+            w=self.w, p_dbl=self.p, n_passes=self.n_passes,
+            max_iter=self.max_iter, impl=self.sweep_impl(),
+        )
+        # the sweep never sees the joint density; recompute it in one fused
+        # XLA pass — unless the caller computes it itself (the runtime fuses
+        # it with the swap's partner-beta evaluation)
+        if compute_final_lp:
+            lp_new = jax.vmap(lambda xv, b, iv: ld(xv, b, iv, ref_params))(
+                x_new, betas, isvars
+            )
+        else:
+            # placeholder derived from the sweep's output so a data
+            # dependency on the explorer survives even when the caller
+            # discards lp (the host_sequential guard in pt.py sequences
+            # host-callback density reads after the move through it)
+            lp_new = x_new[:, 0] * 0.0
         return StepOut(
-            x=x_out[:, :B].T,
-            lp=lp_out[0, :B],
-            accept_sum=stats[0, :B],
-            accept_n=stats[1, :B],
-            n_steps=stats[2, :B],
+            x=x_new,
+            lp=lp_new,
+            accept_sum=stats[0],
+            accept_n=stats[1],
+            n_steps=stats[2],
         )

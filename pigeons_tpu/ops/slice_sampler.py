@@ -7,7 +7,7 @@ validity check (``slice_accept``, ``:192-237``); the log potential is cached
 between coordinate moves (``:24-30``). Defaults w=10, p=20, n_passes=3,
 max_iter=1024 (``:8-20``).
 
-TPU-first design. The runtime vmaps ``step`` over ~10^4 replica lanes, so the
+Batched design. The runtime vmaps ``step`` over ~10^4 replica lanes, so the
 shape of the control flow decides the memory traffic per batched iteration:
 
   * The per-coordinate work is ONE flat ``lax.while_loop`` state machine

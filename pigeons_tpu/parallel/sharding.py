@@ -1,6 +1,6 @@
 """Replica-axis sharding over a 1-D device mesh.
 
-TPU-native replacement for the reference's MPI backend (``src/mpi_utils/``):
+SPMD replacement for the reference's MPI backend (``src/mpi_utils/``):
 
   * Pigeons block-partitions N chains over P processes with ``LoadBalance``
     and exchanges per-pair scalars by tagged MPI point-to-point
@@ -77,7 +77,7 @@ def put_global(arr, sharding):
     multi-process runs. Single process: plain ``device_put``. Multi-process
     (``jax.distributed``): every process holds the same host value (all run
     state is a deterministic function of the seed), so each process supplies
-    its addressable shards via ``make_array_from_callback`` — the TPU-native
+    its addressable shards via ``make_array_from_callback`` — the
     analogue of the reference's per-rank ``LoadBalance`` slice construction
     (``src/mpi_utils/LoadBalance.jl``)."""
     if sharding.is_fully_addressable:

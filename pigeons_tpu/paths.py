@@ -1,6 +1,6 @@
 """Annealing paths: continuums of distributions indexed by beta in [0, 1].
 
-TPU-first design note: the reference represents a discretized path as a vector
+Design note: the reference represents a discretized path as a vector
 of callable log-potential closures dispatched per replica
 (``src/schedules/discretize.jl``, ``src/paths/InterpolatedLogPotential.jl``).
 Here a path is a single traced function ``log_density(x, beta)`` evaluated

@@ -3,7 +3,7 @@
 The reference implements recorders as per-replica mutable accumulators merged
 across threads/processes with a deterministic tree reduction at round end
 (``src/recorders/recorders.jl:88-130``, ``src/mpi_utils/Entangler.jl:214-297``).
-The TPU-native equivalent: every recorder is a fixed-shape array in the
+The batched equivalent: every recorder is a fixed-shape array in the
 ``lax.scan`` carry, updated with gathers/scatters keyed by chain index; the
 "reduction" is just pulling the (replicated) arrays to host at round end.
 Because updates happen in canonical chain order inside a single traced program,
@@ -34,8 +34,8 @@ def kadd(acc, delta):
 
     ``acc`` is a ``[2, ...]`` stack of (running sum, compensation). The
     reference accumulates its online statistics in Float64 OnlineStats
-    (``recorders/recorder.jl:93-102``); TPUs have no fast f64, so compensated
-    f32 summation recovers ~f64 accuracy for long rounds (2^r scans): the
+    (``recorders/recorder.jl:93-102``); the carries here are f32, and
+    compensated summation recovers ~f64 accuracy for long rounds (2^r scans): the
     compensation row carries what each add rounds away — including whole
     increments once counts pass 2^24, where plain f32 addition silently
     drops them."""

@@ -4,7 +4,7 @@ The reference (Pigeons.jl) anchors reproducibility by giving each replica its ow
 ``SplittableRandom`` split from the master seed *by global replica index*
 (reference: ``src/replicas/replicas.jl:87-98``, ``src/utils/misc.jl:17-27``), so the
 random streams are a function of the replica index only and independent of the
-process layout. The TPU-native equivalent is counter-based key derivation: every
+process layout. The batched equivalent is counter-based key derivation: every
 random draw's key is a pure function of ``(seed, round, scan, replica, purpose)``
 via ``jax.random.fold_in``. This gives device-layout invariance by construction —
 the analogue of Pigeons' "parallelism invariance" (``docs/src/distributed.md:39-44``).

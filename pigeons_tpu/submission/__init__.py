@@ -8,7 +8,6 @@ from .cluster import (
     setup_compute_canada,
     setup_mpi,
     setup_sockeye,
-    setup_tpu_pod,
     watch,
 )
 from .multihost import MultiHostLauncher, ThisProcess
@@ -27,6 +26,5 @@ __all__ = [
     "setup_compute_canada",
     "setup_mpi",
     "setup_sockeye",
-    "setup_tpu_pod",
     "watch",
 ]

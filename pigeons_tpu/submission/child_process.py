@@ -5,10 +5,14 @@ Inputs, generate a launch script that deserializes and runs them, spawn it,
 wait (or not), and return a Result over the exec folder. Used by the
 reference both for resource control and for the serial correctness check.
 
-TPU-native uses: isolating a run from the parent's JAX/TPU state (a child
-gets its own XLA client), pinning platform/flags via env (e.g.
-``JAX_PLATFORMS=cpu`` children while the parent owns the TPU), and detached
-long runs.
+Uses: isolating a run from the parent's JAX state (a child gets its own XLA
+client), pinning platform/flags via env (e.g. ``JAX_PLATFORMS=cpu``
+children), and detached long runs. The child inherits the parent's
+environment, so it runs on the parent's platform and shares its compile
+cache (``JAX_COMPILATION_CACHE_DIR``, which also keeps XLA's autotuning
+choices, so both processes compile the same reductions). It allocates
+device memory on demand, so it fits on a card beside a parent that holds
+most of it.
 """
 
 from __future__ import annotations
@@ -23,13 +27,7 @@ from typing import Dict, Optional
 from .result import Result
 
 _LAUNCH_SCRIPT = """\
-import pickle, sys
-platform = {platform!r}
-if platform:
-    # pin via jax.config: site customizations may clobber the JAX_PLATFORMS
-    # env var before jax reads it, and config updates always win
-    import jax
-    jax.config.update("jax_platforms", platform)
+import pickle
 with open({inputs_path!r}, "rb") as f:
     inputs = pickle.load(f)
 inputs.checkpoint = True
@@ -58,32 +56,20 @@ class ChildProcess:
         with open(inputs_path, "wb") as f:
             pickle.dump(inputs, f)
         script_path = os.path.join(exec_folder, ".launch_script.py")
-        # default to the parent's ACTIVE platform so parent and child compute
-        # identical bits (cross-process parallelism invariance). The active
-        # jax.config value outranks the env var: site customizations may set
-        # JAX_PLATFORMS in the environment while the parent overrode it via
-        # config (e.g. a CPU test suite on a TPU host must not hand its
-        # serial-check children the TPU).
-        platform = self.env.get("JAX_PLATFORMS")
-        if not platform:
-            try:
-                import jax
-
-                platform = jax.config.jax_platforms
-            except Exception:
-                platform = None
-        if not platform:
-            platform = os.environ.get("JAX_PLATFORMS")
         with open(script_path, "w") as f:
             f.write(
                 _LAUNCH_SCRIPT.format(
                     inputs_path=inputs_path,
                     exec_folder=exec_folder,
-                    platform=platform,
                 )
             )
 
+        import jax
+
         env = dict(os.environ)
+        env["XLA_PYTHON_CLIENT_PREALLOCATE"] = "false"
+        if jax.config.jax_compilation_cache_dir:
+            env["JAX_COMPILATION_CACHE_DIR"] = jax.config.jax_compilation_cache_dir
         env.update(self.env)
         # the child imports the package from the same source tree
         pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))

@@ -6,7 +6,7 @@ schedulers' directive syntaxes; scripts are generated, submitted with
 sbatch/qsub/bsub, and tracked via ``Result``; ``MPISettings`` persists the
 user's cluster preset (``src/submission/MPISettings.jl``, ``presets.jl``).
 
-TPU-native differences: instead of ``mpiexec julia``, the generated script
+Differences: instead of ``mpiexec julia``, the generated script
 launches one Python process per host which calls
 ``jax.distributed.initialize`` (coordinator address passed by the scheduler)
 and runs the PT with the replica mesh over all global devices.
@@ -117,16 +117,6 @@ def setup_sockeye(allocation_code: str) -> MPISettings:
             f"#SBATCH -A {allocation_code}",
             "#SBATCH --nodes=1-10000",
         ],
-    )
-
-
-def setup_tpu_pod(accelerator_type: str = "v5e-8") -> MPISettings:
-    """Cloud TPU pod slices: one process per host, JAX auto-detects the
-    coordinator from the TPU runtime (no scheduler directives needed beyond
-    the node count)."""
-    return setup_mpi(
-        submission_system="slurm",
-        add_to_submission=[f"#SBATCH --constraint={accelerator_type}"],
     )
 
 

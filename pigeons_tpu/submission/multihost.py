@@ -2,7 +2,7 @@
 global devices.
 
 The reference's distributed backend is MPI (one process per rank exchanging
-point-to-point messages, ``src/mpi_utils/``). The TPU-native equivalent is
+point-to-point messages, ``src/mpi_utils/``). The equivalent here is
 SPMD: every host runs the SAME program; ``jax.distributed.initialize`` wires
 the hosts into one runtime; the replica mesh spans all global devices and XLA
 collectives (all_gather/psum inside the round kernel) ride ICI/DCN. No
@@ -29,7 +29,7 @@ class ThisProcess:
 class MultiHostLauncher:
     """Initialize jax.distributed and run with the replica axis sharded over
     ALL global devices. Invoke the same script on every host (e.g. via
-    ``srun``/TPU pod launcher), passing coordinator/process info either here
+    ``srun``), passing coordinator/process info either here
     or through the standard cluster env vars JAX auto-detects."""
 
     coordinator_address: Optional[str] = None  # host:port of process 0

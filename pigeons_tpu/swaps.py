@@ -1,6 +1,6 @@
 """Non-reversible DEO swaps as permutation updates.
 
-TPU-first design: the reference exchanges 2 floats per pair over MPI
+Batched design: the reference exchanges 2 floats per pair over MPI
 point-to-point and keeps a distributed chain->replica map
 (``src/swap/swap.jl:53-102``, ``src/mpi_utils/PermutedDistributedArray.jl``).
 Here states are a ``[N, ...]`` batch indexed by *replica* (they never move);
@@ -67,7 +67,7 @@ def swap_scan(
     """One communication step over an arbitrary swap graph.
 
     ``partner_map[c]`` is the chain that chain ``c`` interacts with this scan
-    (an involution; ``partner_map[c] == c`` means idle) — the TPU form of the
+    (an involution; ``partner_map[c] == c`` means idle) — the batched form of the
     reference's ``swap_graph`` extension point (``src/swap/swap_graph.jl``:
     ``partner_chain(graph, chain)``; canonical instance Odd/Even, extension
     examples "parallel parallel tempering", multi-leg variational). Defaults
@@ -107,7 +107,7 @@ def swap_scan(
 
     # chain-level destination permutation: a chain in a swapped pair moves to
     # its partner's slot; the involution is its own inverse, so one gather
-    # maintains chain_of and one maintains replica_of (TPU scatters serialize)
+    # maintains chain_of and one maintains replica_of (a scatter may serialize)
     cidx = jnp.arange(n, dtype=chain_of.dtype)
     low = jnp.minimum(cidx, partner_map.astype(chain_of.dtype))
     swapped_chain = do_swap[jnp.minimum(low, max(n - 2, 0))] & (

@@ -7,7 +7,7 @@ ELBO); activates at rounds >= ``first_tuning_round`` (default 6); provides a
 log density, an iid sampler, and an analytic gradient (free here via
 ``jax.grad``).
 
-TPU-native design: the variational parameters are plain arrays threaded into
+Design: the variational parameters are plain arrays threaded into
 the round kernel as ``ref_params``, so refitting between rounds does NOT
 recompile anything — the same traced program reads new parameter values. An
 ``active`` flag (0/1 array) blends the fixed reference and the variational one

@@ -40,13 +40,13 @@ def test_public_names_exist():
 
 
 def test_inputs_fields_match_reference():
-    # reference Inputs.jl:9-102 field set (+ TPU-native additions)
+    # reference Inputs.jl:9-102 field set (+ batched additions)
     fields = set(p.Inputs.__dataclass_fields__)
     for name in [
         "target", "seed", "n_rounds", "n_chains", "n_chains_variational",
         "reference", "variational", "checkpoint", "checked_round", "record",
         "explorer", "extractor", "show_report", "extended_traces",
-        # TPU-native
+        # batched additions
         "n_replicates", "mesh", "swap_graph", "profile_round", "dtype",
     ]:
         assert name in fields, name

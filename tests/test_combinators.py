@@ -70,7 +70,7 @@ def test_mix_deterministic():
 
 
 def test_scanmix_moments_and_adaptation():
-    """ScanMix (the TPU-native systematic-scan mixture — one component per
+    """ScanMix (the systematic-scan mixture — one component per
     scan, scalar switch index, only the selected branch executes) leaves the
     target invariant and still feeds each component's adaptation."""
     am = AutoMALA()

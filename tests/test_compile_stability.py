@@ -1,4 +1,4 @@
-"""Compilation-stability guardrails — the TPU analogue of the reference's
+"""Compilation-stability guardrails — the analogue of the reference's
 allocation tests (``test/test_allocs.jl``: steady-state allocations must not
 grow with round number). Under XLA the corresponding pathology is
 RETRACING/RECOMPILING: the round kernel must compile once per distinct scan

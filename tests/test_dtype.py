@@ -1,8 +1,8 @@
 """Inputs.dtype: f64 opt-in for ill-conditioned targets (VERDICT r3 item 7).
 
 The reference computes in Float64 throughout (``src/pt/state.jl``, all
-explorers). The TPU build defaults to f32 (no fast f64 on TPU; Kahan
-recorders recover accumulation accuracy) but must offer an f64 escape hatch
+explorers). The build defaults to f32 (Kahan recorders recover accumulation
+accuracy) but must offer an f64 escape hatch
 for densities whose f32 evaluation saturates — e.g. a deep funnel where
 ``exp(y)`` underflows f32 and the x-term becomes inf.
 """

@@ -204,8 +204,8 @@ def test_preconditioner_ess_ordering():
 
 
 def test_queued_automala_bitwise_equals_sequential():
-    """The compacted work-queue search (AutoMALA(queued=True), the MXU-scale
-    fast path — docs/performance.md r4) must select the same exponent and
+    """The compacted work-queue search (AutoMALA(queued=True), the large-batch
+    fast path) must select the same exponent and
     candidate as the sequential search: full runs agree bitwise, including
     with in-queue speculation (window > 1)."""
     import jax

@@ -34,7 +34,6 @@ TOTAL_DEVICES = 8
 def worker(pid: int, nprocs: int, port: int) -> None:
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
     if nprocs > 1:
         jax.distributed.initialize(
             coordinator_address=f"localhost:{port}",
@@ -99,10 +98,9 @@ def measure(proc_counts=(1, 2, 4)) -> dict:
             env["XLA_FLAGS"] = (
                 f"--xla_force_host_platform_device_count={TOTAL_DEVICES // nprocs}"
             )
-            env["JAX_COMPILATION_CACHE_DIR"] = os.path.expanduser(
-                f"~/.cache/jax_scaling{pid}"
+            env.setdefault(
+                "JAX_COMPILATION_CACHE_DIR", os.path.join(root, ".jax_cache")
             )
-            env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "1"
             procs.append(
                 subprocess.Popen(
                     [sys.executable, here, "worker", str(pid), str(nprocs), str(port)],
